@@ -1,27 +1,34 @@
-"""dustraytracer_tpu — a TPU-native, differentiable, progressive path tracer.
+"""The package's former import name, kept as an alias of `dustraytracer`.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the
-DustRayTracer reference (a CUDA megakernel path tracer), re-designed
-TPU-first:
-
-- Scene ingest: glTF 2.0 (.glb/.gltf) -> flat SoA arrays (scene/).
-- Acceleration: binned-SAH BVH built on host (numpy + native C++), flat
-  SoA node arrays laid out for batched, masked traversal (accel/).
-- Compute path: pure-functional wavefront rendering. Rays are (N, ...)
-  arrays, the bounce loop is `lax.fori_loop` with live-ray masking, the
-  BVH walk is a batched stack traversal in vectorized form (ops/), with
-  Pallas TPU kernels for the hot paths.
-- Rendering: progressive accumulation carried as explicit state,
-  sun NEE, gradient sky, alpha cutout, Uncharted2 filmic + gamma,
-  debug view heads (render/).
-- Differentiability: pixel gradients w.r.t. materials / camera / vertices
-  with traversal decisions stop-gradiented (diff/).
-- Scale: tile-sharded data parallelism over a `jax.sharding.Mesh`,
-  scene/BVH replicated, gradient psum over ICI (parallel/).
+`import <this name>.x.y` returns the module `dustraytracer.x.y` itself,
+so code written against the old name keeps working and shares every
+module, class and jit cache with code that uses the new one.
 """
 
-__version__ = "0.1.0"
+import importlib
+import importlib.abc
+import importlib.util
+import sys
 
-from dustraytracer_tpu.scene.settings import RenderSettings, RenderMode, DebugMode
+_OLD = __name__
+_NEW = "dustraytracer"
 
-__all__ = ["RenderSettings", "RenderMode", "DebugMode", "__version__"]
+
+class _Alias(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    def find_spec(self, name, path=None, target=None):
+        if name.startswith(_OLD + "."):
+            return importlib.util.spec_from_loader(name, self)
+        return None
+
+    def create_module(self, spec):
+        module = importlib.import_module(_NEW + spec.name[len(_OLD):])
+        spec.loader_state = module.__spec__
+        return module
+
+    def exec_module(self, module):
+        # the import system stamped the alias spec on the shared module
+        module.__spec__ = module.__spec__.loader_state
+
+
+sys.meta_path.insert(0, _Alias())
+sys.modules[_OLD] = importlib.import_module(_NEW)

@@ -35,8 +35,8 @@ def main():
 
     jax.config.update("jax_platforms", "cpu")
 
-    from dustraytracer_tpu.parallel.multihost import (initialize,
-                                                      render_distributed)
+    from dustraytracer.parallel.multihost import (initialize,
+                                                  render_distributed)
 
     pid = initialize(args.coordinator, args.num_processes, args.process_id)
     assert jax.process_count() == args.num_processes, jax.process_count()
@@ -44,8 +44,8 @@ def main():
 
     import numpy as np
 
-    from dustraytracer_tpu.scene import make_camera
-    from dustraytracer_tpu.scene.settings import RenderSettings
+    from dustraytracer.scene import make_camera
+    from dustraytracer.scene.settings import RenderSettings
 
     settings = RenderSettings(bounces=2, enable_tonemap=False,
                               enable_gamma=False)

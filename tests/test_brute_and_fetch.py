@@ -1,19 +1,16 @@
-"""Brute-force tracer and one-hot shading fetch: equivalence oracles.
-
-Both new fast paths must be bit-compatible (hit ids exact, floats close)
-with the reference-semantics gather formulations they replace.
-"""
+"""Brute-force tracer: equivalence oracles against the BVH walks
+(hit ids exact, floats close)."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dustraytracer_tpu.ops.traverse import traverse_closest
-from dustraytracer_tpu.ops.traverse_brute import traverse_brute
-from dustraytracer_tpu.ops.traverse_cluster import traverse_cluster
-from dustraytracer_tpu.render.integrator import render_sample, shade_hits
-from dustraytracer_tpu.scene.camera import make_camera
-from dustraytracer_tpu.scene.settings import LightParams, RenderSettings
+from dustraytracer.ops.traverse import traverse_closest
+from dustraytracer.ops.traverse_brute import traverse_brute
+from dustraytracer.ops.traverse_cluster import traverse_cluster
+from dustraytracer.render.integrator import render_sample
+from dustraytracer.scene.camera import make_camera
+from dustraytracer.scene.settings import LightParams, RenderSettings
 
 from util_scenes import make_random_tri_doc
 
@@ -21,7 +18,7 @@ from util_scenes import make_random_tri_doc
 @pytest.fixture(scope="module")
 def scene():
     # random soup exercises multi-cluster tables + real hit distribution
-    from dustraytracer_tpu.scene.scene import build_scene
+    from dustraytracer.scene.scene import build_scene
 
     return build_scene(make_random_tri_doc(300, seed=3), use_native=False)
 
@@ -64,35 +61,6 @@ def test_brute_respects_t_max(scene, rays):
     # cap below every hit distance -> nothing survives
     r_cap = traverse_brute(scene.cluster, o, d, t_max=jnp.float32(1e-5))
     assert not np.any(np.asarray(r_cap["hit_idx"])[hit] >= 0)
-
-
-def test_onehot_shade_matches_gather(scene, rays):
-    o, d = rays
-    hit_idx = traverse_brute(scene.cluster, o, d)["hit_idx"]
-    a = shade_hits(scene, o, d, hit_idx, fetch="gather")
-    b = shade_hits(scene, o, d, hit_idx, fetch="onehot")
-    np.testing.assert_array_equal(np.asarray(a["material"]),
-                                  np.asarray(b["material"]))
-    for k in ("world_position", "normal", "uv", "bary", "t"):
-        np.testing.assert_allclose(np.asarray(a[k]), np.asarray(b[k]),
-                                   rtol=1e-6, atol=1e-6, err_msg=k)
-
-
-@pytest.mark.parametrize("shading", ["reference", "pbr"])
-def test_render_fetch_modes_identical(scene, shading):
-    cam = make_camera(position=(0.0, 1.0, 4.0), look_at=(0.0, 0.5, 0.0),
-                      vfov_deg=60.0)
-    imgs = {}
-    for fetch in ("gather", "onehot"):
-        st = RenderSettings(bounces=2, enable_tonemap=False,
-                            enable_gamma=False, shading=shading,
-                            shade_fetch=fetch)
-        lights = LightParams.from_settings(st)
-        imgs[fetch] = np.asarray(render_sample(
-            scene, cam, lights, jnp.uint32(3), width=64, height=64,
-            settings=st))
-    np.testing.assert_allclose(imgs["gather"], imgs["onehot"],
-                               rtol=1e-5, atol=1e-5)
 
 
 def test_render_brute_matches_cluster(scene):

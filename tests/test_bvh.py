@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from dustraytracer_tpu.accel.bvh import _build_bvh_numpy, build_bvh
-from dustraytracer_tpu.accel.native.build import build_bvh_native
+from dustraytracer.accel.bvh import _build_bvh_numpy, build_bvh
+from dustraytracer.accel.native.build import build_bvh_native
 
 
 def _random_tris(n, seed=0):

@@ -11,11 +11,11 @@ the exposure-scaled Uncharted2 filmic tonemap (`RayGen.cuh:23-52`,
 import numpy as np
 import jax.numpy as jnp
 
-from dustraytracer_tpu.ops.rng import seed_pixels
-from dustraytracer_tpu.ops.tonemap import uncharted2_filmic
-from dustraytracer_tpu.render.integrator import render_sample
-from dustraytracer_tpu.scene.camera import generate_rays, make_camera
-from dustraytracer_tpu.scene.settings import LightParams, RenderSettings
+from dustraytracer.ops.rng import seed_pixels
+from dustraytracer.ops.tonemap import uncharted2_filmic
+from dustraytracer.render.integrator import render_sample
+from dustraytracer.scene.camera import generate_rays, make_camera
+from dustraytracer.scene.settings import LightParams, RenderSettings
 from tests.util_scenes import make_tri_scene
 
 

@@ -16,8 +16,8 @@ import pytest
 def test_film_roundtrip(tmp_path):
     import jax.numpy as jnp
 
-    from dustraytracer_tpu.render.film import Film
-    from dustraytracer_tpu.utils.checkpoint import load_film, save_film
+    from dustraytracer.render.film import Film
+    from dustraytracer.utils.checkpoint import load_film, save_film
 
     film = Film(accum=jnp.arange(48.0).reshape(4, 4, 3), frame=jnp.int32(7))
     p = tmp_path / "film.npz"
@@ -35,8 +35,8 @@ def test_train_state_roundtrip_with_opt_state(tmp_path):
     import jax.numpy as jnp
     import optax
 
-    from dustraytracer_tpu.utils.checkpoint import (load_train_state,
-                                                    save_train_state)
+    from dustraytracer.utils.checkpoint import (load_train_state,
+                                                save_train_state)
 
     params = {"mat_albedo": jnp.full((3, 3), 0.25),
               "mat_roughness": jnp.ones((3,)) * 0.5}
@@ -72,10 +72,11 @@ def test_train_state_roundtrip_with_opt_state(tmp_path):
 @pytest.mark.slow
 def test_optimize_resume_roundtrip(tmp_path, capsys):
     """save -> stop -> --resume continues from the checkpointed step."""
-    scene = "/root/reference/models/cornell_box.glb"
-    if not os.path.exists(scene):
-        pytest.skip("cornell_box.glb not bundled")
-    from dustraytracer_tpu.apps import optimize
+    pytest.importorskip("PIL")  # the loader decodes the embedded PNGs
+    from dustraytracer.apps import optimize
+    from tests.util_scenes import cornell_glb
+
+    scene = cornell_glb(tmp_path)
 
     out = str(tmp_path / "run")
     base = ["--scene", scene, "--self-test", "--optimize", "albedo",

@@ -8,12 +8,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dustraytracer_tpu.render.integrator import render_pixels
-from dustraytracer_tpu.scene.camera import make_camera
-from dustraytracer_tpu.scene.gltf import (GltfDocument, GltfMaterial,
-                                          GltfPrimitive)
-from dustraytracer_tpu.scene.scene import build_scene
-from dustraytracer_tpu.scene.settings import LightParams, RenderSettings
+from dustraytracer.render.integrator import render_pixels
+from dustraytracer.scene.camera import make_camera
+from dustraytracer.scene.gltf import (GltfDocument, GltfMaterial,
+                                      GltfPrimitive)
+from dustraytracer.scene.scene import build_scene
+from dustraytracer.scene.settings import LightParams, RenderSettings
 
 from util_scenes import make_quad
 
@@ -205,7 +205,7 @@ def test_gltf_transmission_extension_parsed(tmp_path):
     p = tmp_path / "glass.glb"
     p.write_bytes(out)
 
-    from dustraytracer_tpu.scene import load_scene
+    from dustraytracer.scene import load_scene
     sc = load_scene(str(p))
     assert float(sc.mat_transmission[0]) == pytest.approx(0.8)
     assert float(sc.mat_ior[0]) == pytest.approx(1.31)

@@ -10,10 +10,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from dustraytracer_tpu.diff.fd import check_grads_vs_fd
-from dustraytracer_tpu.render.integrator import render_sample
-from dustraytracer_tpu.scene.camera import make_camera
-from dustraytracer_tpu.scene.settings import LightParams, RenderSettings
+from dustraytracer.diff.fd import check_grads_vs_fd
+from dustraytracer.render.integrator import render_sample
+from dustraytracer.scene.camera import make_camera
+from dustraytracer.scene.settings import LightParams, RenderSettings
 
 W = H = 16
 
@@ -125,7 +125,7 @@ def test_light_params_pipeline_grad(setup):
 def test_grad_zero_through_traversal_ids(setup):
     """Traversal must be a pure selector: its outputs carry no gradient
     (stop_gradient contract)."""
-    from dustraytracer_tpu.ops.traverse import traverse_closest
+    from dustraytracer.ops.traverse import traverse_closest
 
     scene, cam, s, lights = setup
 
@@ -148,8 +148,8 @@ def test_soft_edge_silhouette_gradient():
     (continuation ray misses). Geometry-backed edges are covered by
     test_soft_edge_geometry_backed_gradient below.
     """
-    from dustraytracer_tpu.scene.gltf import (GltfDocument, GltfMaterial)
-    from dustraytracer_tpu.scene.scene import build_scene
+    from dustraytracer.scene.gltf import (GltfDocument, GltfMaterial)
+    from dustraytracer.scene.scene import build_scene
     from tests.util_scenes import make_quad
 
     doc = GltfDocument(
@@ -222,8 +222,8 @@ def test_soft_edge_geometry_backed_gradient():
     """
     import optax
 
-    from dustraytracer_tpu.scene.gltf import GltfDocument, GltfMaterial
-    from dustraytracer_tpu.scene.scene import build_scene
+    from dustraytracer.scene.gltf import GltfDocument, GltfMaterial
+    from dustraytracer.scene.scene import build_scene
     from tests.util_scenes import make_quad
 
     doc = GltfDocument(

@@ -4,7 +4,7 @@ the reference never had)."""
 import numpy as np
 import jax.numpy as jnp
 
-from dustraytracer_tpu.ops.intersect import moller_trumbore, ray_aabb_entry
+from dustraytracer.ops.intersect import moller_trumbore, ray_aabb_entry
 
 
 def _mt(o, d, v0, v1, v2):

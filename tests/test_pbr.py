@@ -7,12 +7,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from dustraytracer_tpu.render.integrator import render_sample
-from dustraytracer_tpu.render.texture import decode_textures, sample_texture
-from dustraytracer_tpu.scene import load_scene, make_camera
-from dustraytracer_tpu.scene.settings import LightParams, RenderSettings
+from dustraytracer.render.integrator import render_sample
+from dustraytracer.render.texture import decode_textures, sample_texture
+from dustraytracer.scene import make_camera
+from dustraytracer.scene.settings import LightParams, RenderSettings
+from tests.util_scenes import make_courtyard_small_scene
 
-MODELS = "/root/reference/models"
 W = H = 32
 
 
@@ -42,9 +42,9 @@ def test_emissive_adds_light(tri_scene, cam):
 
 
 def test_emissive_scene_renders(cam):
-    scene = load_scene(f"{MODELS}/test/EmissiveTest.glb")
+    scene = make_courtyard_small_scene()
     assert float(jnp.abs(scene.mat_emissive).max()) > 0, \
-        "EmissiveTest.glb should carry emissive materials"
+        "the generated courtyard carries an emissive material"
     s = RenderSettings(bounces=2, shading="pbr", enable_tonemap=False,
                        enable_gamma=False, enable_sunlight=False)
     lo = np.asarray(scene.node_min[0]); hi = np.asarray(scene.node_max[0])

@@ -5,12 +5,12 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dustraytracer_tpu.render.film import (film_add, film_image, film_init,
-                                           render_progressive)
-from dustraytracer_tpu.render.integrator import render_sample
-from dustraytracer_tpu.scene.camera import make_camera
-from dustraytracer_tpu.scene.settings import (DebugMode, LightParams,
-                                              RenderMode, RenderSettings)
+from dustraytracer.render.film import (film_add, film_image, film_init,
+                                       render_progressive)
+from dustraytracer.render.integrator import render_sample
+from dustraytracer.scene.camera import make_camera
+from dustraytracer.scene.settings import (DebugMode, LightParams,
+                                          RenderMode, RenderSettings)
 
 W = H = 32
 
@@ -145,7 +145,7 @@ def test_russian_roulette_unbiased_mean(tri_scene, cam):
 
 
 def test_rng_uniformity():
-    from dustraytracer_tpu.ops.rng import random_float, seed_pixels
+    from dustraytracer.ops.rng import random_float, seed_pixels
 
     state = seed_pixels(jnp.arange(100_000, dtype=jnp.uint32), 0)
     _, u = random_float(state)
@@ -157,7 +157,7 @@ def test_rng_uniformity():
 
 
 def test_unit_sphere_sampler():
-    from dustraytracer_tpu.ops.rng import random_unit_vec3, seed_pixels
+    from dustraytracer.ops.rng import random_unit_vec3, seed_pixels
 
     state = seed_pixels(jnp.arange(50_000, dtype=jnp.uint32), 1)
     _, v = random_unit_vec3(state)

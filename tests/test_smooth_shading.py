@@ -7,13 +7,13 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dustraytracer_tpu.render.integrator import render_sample, shade_hits
-from dustraytracer_tpu.scene.camera import make_camera
-from dustraytracer_tpu.scene.gltf import (GltfDocument, GltfMaterial,
-                                          GltfPrimitive)
-from dustraytracer_tpu.scene.scene import build_scene
-from dustraytracer_tpu.scene.settings import (DebugMode, LightParams,
-                                              RenderMode, RenderSettings)
+from dustraytracer.render.integrator import render_sample, shade_hits
+from dustraytracer.scene.camera import make_camera
+from dustraytracer.scene.gltf import (GltfDocument, GltfMaterial,
+                                      GltfPrimitive)
+from dustraytracer.scene.scene import build_scene
+from dustraytracer.scene.settings import (DebugMode, LightParams,
+                                          RenderMode, RenderSettings)
 
 W = H = 24
 
@@ -40,8 +40,8 @@ def test_shade_hits_smooth_normals_interpolate(bent_quad_scene):
     o = jnp.array([[-0.5, 0.3, 3.0], [0.5, 0.3, 3.0], [0.0, 1.5, 3.0]])
     d = jnp.array([[0.0, 0.0, -1.0]] * 3)
     hit = jnp.zeros((3,), jnp.int32)
-    flat = shade_hits(s, o, d, hit, "gather", smooth=False)
-    sm = shade_hits(s, o, d, hit, "gather", smooth=True)
+    flat = shade_hits(s, o, d, hit, smooth=False)
+    sm = shade_hits(s, o, d, hit, smooth=True)
     nf = np.asarray(flat["normal"])
     ns = np.asarray(sm["normal"])
     # flat: identical normal everywhere; smooth: varies with position
@@ -50,9 +50,6 @@ def test_shade_hits_smooth_normals_interpolate(bent_quad_scene):
     # all unit length, all viewer-facing
     assert np.allclose(np.linalg.norm(ns, axis=-1), 1.0, atol=1e-5)
     assert (np.sum(ns * np.asarray(d), axis=-1) <= 0).all()
-    # gather and one-hot fetches agree
-    sm_oh = shade_hits(s, o, d, hit, "onehot", smooth=True)
-    np.testing.assert_allclose(np.asarray(sm_oh["normal"]), ns, atol=1e-5)
 
 
 def test_smooth_shading_changes_render(bent_quad_scene):

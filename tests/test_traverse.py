@@ -4,9 +4,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dustraytracer_tpu.ops.intersect import moller_trumbore
-from dustraytracer_tpu.ops.traverse import traverse_anyhit, traverse_closest
-from dustraytracer_tpu.scene.scene import build_scene
+from dustraytracer.ops.intersect import moller_trumbore
+from dustraytracer.ops.traverse import traverse_anyhit, traverse_closest
+from dustraytracer.scene.scene import build_scene
 from tests.util_scenes import make_random_tri_doc
 
 

@@ -16,9 +16,9 @@ import pytest
 def test_viewer_api_roundtrip(tri_scene):
     from http.server import ThreadingHTTPServer
 
-    from dustraytracer_tpu.apps.viewer import ViewerState, make_handler
-    from dustraytracer_tpu.scene import make_camera
-    from dustraytracer_tpu.scene.settings import RenderSettings
+    from dustraytracer.apps.viewer import ViewerState, make_handler
+    from dustraytracer.scene import make_camera
+    from dustraytracer.scene.settings import RenderSettings
 
     cam = make_camera(position=(0, 2, 6), look_at=(0, 1, 0), vfov_deg=50)
     state = ViewerState(tri_scene, cam, RenderSettings(bounces=1),

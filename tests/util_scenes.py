@@ -4,33 +4,9 @@ from __future__ import annotations
 
 import numpy as np
 
-from dustraytracer_tpu.scene.gltf import GltfDocument, GltfMaterial, GltfPrimitive
-from dustraytracer_tpu.scene.scene import Scene, build_scene
-
-
-def make_quad(center, size, axis, mat=0, flip=False):
-    """Two triangles forming a square perpendicular to `axis`."""
-    c = np.asarray(center, np.float32)
-    h = size / 2.0
-    if axis == 2:  # XY plane
-        corners = np.array([[-h, -h, 0], [h, -h, 0], [h, h, 0], [-h, h, 0]])
-        n = np.array([0, 0, 1.0])
-    elif axis == 1:  # XZ plane
-        corners = np.array([[-h, 0, -h], [h, 0, -h], [h, 0, h], [-h, 0, h]])
-        n = np.array([0, 1.0, 0])
-    else:  # YZ plane
-        corners = np.array([[0, -h, -h], [0, h, -h], [0, h, h], [0, -h, h]])
-        n = np.array([1.0, 0, 0])
-    if flip:
-        n = -n
-        corners = corners[::-1]
-    corners = (corners + c).astype(np.float32)
-    tris = np.stack([corners[[0, 1, 2]], corners[[0, 2, 3]]])
-    normals = np.broadcast_to(n, (2, 3, 3)).astype(np.float32)
-    uvs = np.array([[[0, 0], [1, 0], [1, 1]], [[0, 0], [1, 1], [0, 1]]],
-                   np.float32)
-    return GltfPrimitive(positions=tris, normals=normals.copy(),
-                         uvs=uvs, material=mat)
+from dustraytracer.scene.generate import make_quad  # noqa: F401
+from dustraytracer.scene.gltf import GltfDocument, GltfMaterial, GltfPrimitive
+from dustraytracer.scene.scene import Scene, build_scene
 
 
 def make_tri_scene() -> Scene:
@@ -99,3 +75,114 @@ def make_glass_panes_scene() -> Scene:
         ],
         images=[], cameras=[])
     return build_scene(doc, use_native=False)
+
+
+def make_cornell_scene() -> Scene:
+    """The generated cornell box ("synthetic:cornell" goldens)."""
+    from dustraytracer.scene.generate import cornell_box_doc
+
+    return build_scene(cornell_box_doc())
+
+
+def make_courtyard_small_scene() -> Scene:
+    """A small cut of the generated courtyard: every mechanism of the
+    full scene (16 textures, alpha cutout foliage, glass, emitter) at a
+    few thousand triangles ("synthetic:courtyard_small" goldens)."""
+    from dustraytracer.scene.generate import courtyard_doc
+
+    return build_scene(courtyard_doc(0, detail=0.15, tex_size=32))
+
+
+def with_alpha_texture(scene: Scene, seed=0) -> Scene:
+    """`scene` with every material textured by one random 8x8 RGBA
+    texture whose alpha is 0, 128 or 255 per texel (only 255 is opaque
+    to the alpha test)."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(seed)
+    tex = rng.integers(0, 256, (1, 8, 8, 4)).astype(np.uint8)
+    tex[..., 3] = rng.choice(np.array([0, 128, 255], np.uint8), (1, 8, 8))
+    n_mat = scene.mat_albedo.shape[0]
+    return scene.replace(
+        tex_stack=jnp.asarray(tex), tex_hw=jnp.asarray([[8, 8]], np.int32),
+        tex_has_alpha=jnp.asarray([True]),
+        mat_albedo_tex=jnp.zeros((n_mat,), jnp.int32))
+
+
+def write_glb(doc: GltfDocument, path) -> None:
+    """Write a GltfDocument as a .glb file (one node per mesh, flat
+    triangle lists, textures as embedded PNGs), so the file-loading
+    entry points (CLI, optimizer, multihost) can run on generated
+    scenes. Reading the images back needs Pillow."""
+    import json
+    import struct
+
+    from dustraytracer.utils.image import encode_png
+
+    chunks, views, accessors, meshes = [], [], [], []
+    offset = 0
+
+    def add(data: bytes) -> int:
+        nonlocal offset
+        pad = b"\x00" * (-len(data) % 4)
+        chunks.append(data + pad)
+        views.append({"buffer": 0, "byteOffset": offset,
+                      "byteLength": len(data)})
+        offset += len(data) + len(pad)
+        return len(views) - 1
+
+    def accessor(arr, kind) -> int:
+        arr = np.ascontiguousarray(arr, np.float32)
+        accessors.append({"bufferView": add(arr.tobytes()),
+                          "componentType": 5126, "count": arr.shape[0],
+                          "type": kind})
+        return len(accessors) - 1
+
+    for name, prims in doc.meshes:
+        out = []
+        for p in prims:
+            out.append({"attributes": {
+                "POSITION": accessor(p.positions.reshape(-1, 3), "VEC3"),
+                "NORMAL": accessor(p.normals.reshape(-1, 3), "VEC3"),
+                "TEXCOORD_0": accessor(p.uvs.reshape(-1, 2), "VEC2")},
+                "material": int(p.material)})
+        meshes.append({"name": name, "primitives": out})
+    images = [{"bufferView": add(encode_png(im)), "mimeType": "image/png"}
+              for im in doc.images]
+    materials = []
+    for m in doc.materials:
+        pbr = {"baseColorFactor": [*map(float, m.base_color), 1.0],
+               "metallicFactor": float(m.metallic),
+               "roughnessFactor": float(m.roughness)}
+        if m.base_color_texture >= 0:
+            pbr["baseColorTexture"] = {"index": int(m.base_color_texture)}
+        materials.append({"pbrMetallicRoughness": pbr,
+                          "emissiveFactor": [*map(float, m.emissive)]})
+    gltf = {"asset": {"version": "2.0"}, "scene": 0,
+            "scenes": [{"nodes": list(range(len(meshes)))}],
+            "nodes": [{"mesh": i} for i in range(len(meshes))],
+            "meshes": meshes, "materials": materials,
+            "accessors": accessors, "bufferViews": views,
+            "buffers": [{"byteLength": offset}]}
+    if images:
+        gltf["images"] = images
+        gltf["textures"] = [{"source": i} for i in range(len(images))]
+    blob = b"".join(chunks)
+    js = json.dumps(gltf).encode()
+    js += b" " * (-len(js) % 4)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<III", 0x46546C67, 2,
+                            12 + 8 + len(js) + 8 + len(blob)))
+        f.write(struct.pack("<II", len(js), 0x4E4F534A) + js)
+        f.write(struct.pack("<II", len(blob), 0x004E4942) + blob)
+
+
+def cornell_glb(directory) -> str:
+    """The generated cornell box written as <directory>/cornell_box.glb."""
+    import os
+
+    from dustraytracer.scene.generate import cornell_box_doc
+
+    path = os.path.join(str(directory), "cornell_box.glb")
+    write_glb(cornell_box_doc(), path)
+    return path

@@ -1,6 +1,6 @@
 """Generate the committed reference-parity goldens (tests/goldens/).
 
-Two tiers per scene (see docs/REFERENCE_PARITY.md for the full contract):
+Two tiers (see docs/REFERENCE_PARITY.md for the full contract):
 
 - *exact* goldens: small, few-sample renders at the reference's default
   settings, regenerated and compared PER-PIXEL by
@@ -31,42 +31,38 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if ROOT not in sys.path:  # allow running as `python tools/make_goldens.py`
     sys.path.insert(0, ROOT)
 GOLDEN_DIR = os.path.join(ROOT, "tests", "goldens")
-MODELS = "/root/reference/models"
 
-# The canonical cameras for the two parity scenes (the reference embeds
-# no cameras in these .glb files and its editor camera is interactive;
-# these choices frame the scene content the way reference_render.png
-# frames cs16_dust — documented in docs/REFERENCE_PARITY.md).
+# Every golden scene is generated (tests/util_scenes.py builders over
+# dustraytracer/scene/generate.py), so the goldens need no files
+# from outside the repository.
 SCENES = {
     "cornell_box": dict(
-        file="cornell_box.glb",
+        file="synthetic:cornell",
         camera=dict(position=(0, 1.25, 1.18), look_at=(0, 1.1, -1.25),
                     vfov_deg=75.0),
         exact=dict(size=96, spp=2),
         converged=dict(size=128, spp=512),
     ),
-    "suzanne_plane": dict(
-        file="suzanne_plane.glb",
-        camera=dict(position=(0, 1.5, 5), look_at=(0, 0.5, 0),
-                    vfov_deg=45.0),
+    "cornell_dof": dict(
+        file="synthetic:cornell",
+        # thin-lens depth of field (Camera.cu:101-115 parity): focus on
+        # the back wall, wide 6-degree defocus cone
+        camera=dict(position=(0, 1.25, 1.18), look_at=(0, 1.1, -1.25),
+                    vfov_deg=75.0, focus_dist=2.4, defocus_angle=6.0),
+        exact=dict(size=64, spp=4),
+    ),
+    "courtyard": dict(
+        file="synthetic:courtyard_small",  # alpha-cutout foliage
+        # (AnyHit.cuh:8-28), glass, emitter, 16 textures
+        camera=dict(position=(4.0, 7.0, 17.0), look_at=(0.0, 1.2, 0.0),
+                    vfov_deg=50.0),
+        overrides=dict(alpha_test=True, shading="pbr"),
         exact=dict(size=64, spp=2),
-        converged=dict(size=128, spp=512),
     ),
-    # --- round-3 golden-diversity additions (VERDICT r2 weak #5):
-    # exact tier only — each pins a feature path the original pair
-    # never exercised.
-    "mc_transparency": dict(
-        file="minecraft/mcTransparencyTest.glb",  # the reference's own
-        # AnyHit fixture (AnyHit.cuh:8-28)
-        camera=dict(position=(0.0, 5.0, 9.4), look_at=(0.0, 3.0, -1.5),
-                    vfov_deg=55.0),
-        overrides=dict(alpha_test=True),
-        exact=dict(size=96, spp=2),
-    ),
-    "suzanne_smooth": dict(
-        file="suzanne_plane.glb",
-        camera=dict(position=(0, 1.5, 5), look_at=(0, 0.5, 0),
-                    vfov_deg=45.0),
+    "courtyard_smooth": dict(
+        file="synthetic:courtyard_small",
+        camera=dict(position=(4.0, 7.0, 17.0), look_at=(0.0, 1.2, 0.0),
+                    vfov_deg=50.0),
         overrides=dict(smooth_shading=True),
         exact=dict(size=64, spp=2),
     ),
@@ -77,36 +73,14 @@ SCENES = {
         overrides=dict(shading="pbr"),
         exact=dict(size=64, spp=4),
     ),
-    "suzanne_dof": dict(
-        file="suzanne_plane.glb",
-        # thin-lens depth of field (Camera.cu:101-115 parity): focus on
-        # the monkey (~5.1 units), wide 6-degree defocus cone so the
-        # ground plane's checker-free regions blur visibly at 64x64.
-        # Covers defocus_angle > 0 + focus_dist, which no other golden,
-        # test or bench exercised (VERDICT r3 weak #5).
-        camera=dict(position=(0, 1.5, 5), look_at=(0, 0.5, 0),
-                    vfov_deg=45.0, focus_dist=5.1, defocus_angle=6.0),
-        exact=dict(size=64, spp=4),
-    ),
-    "cs16_dust": dict(
-        file="source/cs16_dust.glb",  # the reference flagship scene
-        # (EditorLayer.cpp:50), aerial crop per bench_scenes.py
-        camera=dict(position=(45.0, 30.0, 45.0), look_at=(-5.0, 0.0, -25.0),
-                    vfov_deg=55.0),
-        exact=dict(size=96, spp=2),
-    ),
 }
 
 
 def load_golden_scene(file: str):
-    """Load a golden scene: bundled .glb path or a synthetic builder."""
-    if file.startswith("synthetic:"):
-        import tests.util_scenes as us
+    """Build a golden scene from its "synthetic:<name>" builder."""
+    import tests.util_scenes as us
 
-        return getattr(us, f"make_{file.split(':', 1)[1]}_scene")()
-    from dustraytracer_tpu.scene import load_scene
-
-    return load_scene(os.path.join(MODELS, file))
+    return getattr(us, f"make_{file.split(':', 1)[1]}_scene")()
 
 
 def reference_default_settings():
@@ -114,7 +88,7 @@ def reference_default_settings():
     22-34`): tonemap + gamma + sunlight on, sky on, bounce_limit=2.
     The reference's loop runs `i <= ray_bounce_limit` (`RayGen.cuh:88`)
     = 3 path segments, which is bounces=3 here."""
-    from dustraytracer_tpu.scene.settings import RenderSettings
+    from dustraytracer.scene.settings import RenderSettings
 
     return RenderSettings(bounces=3)
 
@@ -123,7 +97,7 @@ def render_accum(scene, cam, lights, settings, size, spp, start_frame=0):
     import jax
     import jax.numpy as jnp
 
-    from dustraytracer_tpu.render.integrator import render_sample
+    from dustraytracer.render.integrator import render_sample
 
     accum = None
     for i in range(spp):
@@ -143,7 +117,7 @@ def save_golden(name, image, meta):
     np.savez_compressed(path, image=image.astype(np.float16),
                         meta=json.dumps(meta))
     # 8-bit preview for humans (the test compares the npz)
-    from dustraytracer_tpu.utils.image import save_png
+    from dustraytracer.utils.image import save_png
 
     save_png(os.path.join(GOLDEN_DIR, f"{name}.png"),
              np.clip(image, 0.0, 1.0))
@@ -164,11 +138,13 @@ def main(argv=None):
         jax.config.update("jax_platforms", "cpu")
     import jax
 
-    from dustraytracer_tpu.scene import make_camera
-    from dustraytracer_tpu.scene.settings import LightParams
+    from dustraytracer.scene import make_camera
+    from dustraytracer.scene.settings import LightParams
 
     settings = reference_default_settings()
-    backend = jax.default_backend()
+    from dustraytracer.platform import platform
+
+    backend = platform()
 
     only = {s for s in args.scenes.split(",") if s}
     for name, cfg in SCENES.items():
